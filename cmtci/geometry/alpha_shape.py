@@ -10,7 +10,7 @@ Reference behavior (reimplemented):
   * polygon construction (largest loop by area) replacing
     alphashape.alphashape(...) -> shapely Polygon — lucas_to_cardioid_v40_reference.py:85-93
 
-Delaunay runs on host CPU (qhull via scipy; there is no TPU analogue of an
+Delaunay runs on host CPU (qhull via scipy; there is no device analogue of an
 incremental flip algorithm worth building for <100k points). Everything
 downstream (circumradii, edge counting) is vectorized numpy.
 """

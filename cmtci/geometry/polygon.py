@@ -314,9 +314,7 @@ def _distances_blocked_jit(pts, p0, p1):
 
     Same clamped-projection formula as _nearest_on_segments; the fixed
     block size keeps one compiled executable per edge count E and the
-    remainder block is padded by repeating row 0 (extra rows sliced off).
-    f64 math pins to the host CPU under a TPU-pinned session (device
-    policy, utils/device.py)."""
+    remainder block is padded by repeating row 0 (extra rows sliced off)."""
     global _dist_block_fn
     if _dist_block_fn is None:
         import jax
@@ -332,16 +330,14 @@ def _distances_blocked_jit(pts, p0, p1):
             return jnp.sqrt(((q[:, None, :] - closest) ** 2).sum(axis=2).min(axis=1))
 
         _dist_block_fn = _block
-    from cmtci.utils.device import analysis_cpu
 
     n = len(pts)
     n_pad = -(-n // _DIST_BLOCK) * _DIST_BLOCK
     if n_pad > n:
         pts = np.vstack([pts, np.repeat(pts[:1], n_pad - n, axis=0)])
-    with analysis_cpu():
-        outs = [_dist_block_fn(pts[i:i + _DIST_BLOCK], p0, p1)
-                for i in range(0, n_pad, _DIST_BLOCK)]
-        return np.concatenate([np.asarray(o) for o in outs])[:n]
+    outs = [_dist_block_fn(pts[i:i + _DIST_BLOCK], p0, p1)
+            for i in range(0, n_pad, _DIST_BLOCK)]
+    return np.concatenate([np.asarray(o) for o in outs])[:n]
 
 
 def _nearest_on_segments_pruned(pts, p0, p1, tree, samp_seg, half_spacing):

@@ -7,22 +7,44 @@ these cover the recurring figure types: alignment overlays
 (boundary_curvature_localpoly.py:195-218), boundary correspondence
 (lucas_to_cardioid_v40_reference.py:413-470), field panels (Potentials.py),
 and variogram curves. All figures are optional edges — pipelines return
-arrays; plotting never sits on the compute path.
+arrays; plotting never sits on the compute path. Without matplotlib every
+figure writer is a no-op (one stderr line per process says so), so the
+pipelines still write their data artifacts.
 """
 
 from __future__ import annotations
 
+import functools
+import sys
+
 import numpy as np
 
-import matplotlib
-
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
-
-from cmtci.io.writers import ensure_dir  # noqa: E402
-
-
+from cmtci.io.writers import ensure_dir
 from cmtci.utils.arrays import as_xy as _xy  # shared (N,2) coercion
+
+try:
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+except ImportError:
+    plt = None
+
+_warned = []
+
+
+def _figure(fn):
+    """Skip the figure (and say so once) when matplotlib is missing."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if plt is None:
+            if not _warned:
+                _warned.append(True)
+                print("cmtci: matplotlib is not installed; PNG figures are "
+                      "skipped", file=sys.stderr)
+            return None
+        return fn(*args, **kwargs)
+    return wrapped
 
 #: PNG encode at zlib level 1 instead of Pillow's default 6: decoded pixels
 #: are IDENTICAL (lossless either way, golden-pixel tests unaffected), the
@@ -32,6 +54,7 @@ from cmtci.utils.arrays import as_xy as _xy  # shared (N,2) coercion
 _PNG_FAST = {"compress_level": 1}
 
 
+@_figure
 def plot_alignment(c, m, c_aligned, path, title="Construct vs Mandelbrot (aligned)"):
     c, m, ca = _xy(c), _xy(m), _xy(c_aligned)
     fig = plt.figure(figsize=(8, 6))
@@ -49,6 +72,7 @@ def plot_alignment(c, m, c_aligned, path, title="Construct vs Mandelbrot (aligne
     return path
 
 
+@_figure
 def plot_matches(c_aligned, m, matches, path, preserved_mask=None):
     """Match segments, optionally colored by a preservation mask."""
     ca, m = _xy(c_aligned), _xy(m)
@@ -69,6 +93,7 @@ def plot_matches(c_aligned, m, matches, path, preserved_mask=None):
     return path
 
 
+@_figure
 def plot_kl_descent(kls, path, title="KL descent (TCI flow)"):
     fig = plt.figure()
     plt.plot(np.asarray(kls))
@@ -81,6 +106,7 @@ def plot_kl_descent(kls, path, title="KL descent (TCI flow)"):
     return path
 
 
+@_figure
 def plot_field(field, domain, path, title="", cmap="viridis"):
     fig = plt.figure()
     plt.imshow(np.asarray(field), origin="lower",
@@ -93,6 +119,7 @@ def plot_field(field, domain, path, title="", cmap="viridis"):
     return path
 
 
+@_figure
 def plot_boundary_overlay(points, boundary, path, title=""):
     p, b = _xy(points), _xy(boundary)
     fig = plt.figure(figsize=(6, 6))
@@ -107,6 +134,7 @@ def plot_boundary_overlay(points, boundary, path, title=""):
     return path
 
 
+@_figure
 def plot_curvature(p, kappa, prefix):
     """Histogram + color overlay (boundary_curvature_localpoly.py:195-218)."""
     p = _xy(p)
@@ -131,6 +159,7 @@ def plot_curvature(p, kappa, prefix):
     return f"{prefix}_curvature_hist.png", f"{prefix}_curvature_overlay.png"
 
 
+@_figure
 def plot_boundary_correspondence(z_bdy, w_bdy, path, title=""):
     """t-colored boundary correspondence (v40:413-440)."""
     z = np.asarray(z_bdy, dtype=complex).ravel()
@@ -154,6 +183,7 @@ def plot_boundary_correspondence(z_bdy, w_bdy, path, title=""):
     return path
 
 
+@_figure
 def plot_multifractal_compare(res_c, res_m, prefix):
     """D(q) and f(alpha) comparison plots (multifractal_phase6.py:150-172)."""
     fig = plt.figure(figsize=(8, 5))
@@ -180,6 +210,7 @@ def plot_multifractal_compare(res_c, res_m, prefix):
     return f"{prefix}_Dq_compare.png", f"{prefix}_falpha_compare.png"
 
 
+@_figure
 def plot_fft_reconstructions(c_pts, m_pts, path, modes=(5, 10, 30, 100),
                              ffts=None):
     """Low-mode IFFT reconstruction overlays (spatial_stats_phase4.py:60-78).
@@ -214,6 +245,7 @@ def plot_fft_reconstructions(c_pts, m_pts, path, modes=(5, 10, 30, 100),
     return path
 
 
+@_figure
 def plot_embedding_scatter(points, vec, path, title=""):
     """Cloud colored by a diffusion eigenvector (dynamical_embeddings_phase7.py:158-169)."""
     p = _xy(points)
@@ -226,6 +258,7 @@ def plot_embedding_scatter(points, vec, path, title=""):
     return path
 
 
+@_figure
 def plot_eigenvalue_spectra(vals_c, vals_m, path):
     """Leading-eigenvalue decay comparison (dynamical_embeddings_phase7.py:142-152)."""
     vals_c = np.asarray(vals_c)
@@ -243,6 +276,7 @@ def plot_eigenvalue_spectra(vals_c, vals_m, path):
     return path
 
 
+@_figure
 def plot_k_bins(bins, tag, out_dir):
     """K-vs-distance-bin medians and counts (lucas_to_cardioid_v18...py:1037-1063).
 
@@ -270,6 +304,7 @@ def plot_k_bins(bins, tag, out_dir):
     return paths
 
 
+@_figure
 def plot_local_correlation_panels(u_c, u_m, corr_map, domain, path):
     """U_C / U_M / difference / local-r panels (Potentials.py:96-124)."""
     u_c = np.asarray(u_c)
@@ -295,6 +330,7 @@ def plot_local_correlation_panels(u_c, u_m, corr_map, domain, path):
     return path
 
 
+@_figure
 def plot_match_distance_hist(distances, path):
     """Matching-distance histogram (match_analysis_steps1_2.py:28-32)."""
     fig = plt.figure()
@@ -308,6 +344,7 @@ def plot_match_distance_hist(distances, path):
     return path
 
 
+@_figure
 def plot_curvature_hotspots(c_pts, m_pts, curv_c, curv_m, path):
     """Side-by-side log1p-curvature scatters (spatial_stats_phase3b.py:17-42)."""
     c, m = _xy(c_pts), _xy(m_pts)
@@ -327,6 +364,7 @@ def plot_curvature_hotspots(c_pts, m_pts, curv_c, curv_m, path):
     return path
 
 
+@_figure
 def plot_g_density_compare(laws_out: dict, g_out, prefix):
     """g-space and |Phi|-space density figures vs the reference laws.
 
@@ -390,6 +428,7 @@ def plot_g_density_compare(laws_out: dict, g_out, prefix):
     return p_g, p_phi
 
 
+@_figure
 def plot_family_kde_overlay(family_g: dict, path, kde_grid_n: int = 800,
                             min_outside: int = 50):
     """KDE overlays of g_M(c) across companion families.
@@ -420,6 +459,7 @@ def plot_family_kde_overlay(family_g: dict, path, kde_grid_n: int = 800,
     return path
 
 
+@_figure
 def plot_variograms(r, curves: dict, path, title="Semivariograms"):
     fig = plt.figure(figsize=(8, 5.5))
     for label, g in curves.items():

@@ -5,7 +5,7 @@ Covers the reference's three conventions (SURVEY.md §2.1 K8):
   * U = -(1/N) Σ log(|z-p| + eps), eps=1e-12   — Laplacian_C-M.py:16-24
   * U = (1/N) Σ log(1/(|z-p| + eps)), eps=1e-6 — variograms_construct_mandelbrot.py:128-146
 
-The O(H·W·N) pairwise work is blocked over point chunks so VMEM/host memory
+The O(H·W·N) pairwise work is blocked over point chunks so device/host memory
 stays bounded; padding lanes carry zero weight.
 """
 
@@ -50,24 +50,15 @@ def cloud_log_potential(gx, gy, pts, eps: float = 1e-12, sign: int = 1, chunk: i
     n = px.shape[0]
     if n == 0:
         return jnp.zeros_like(jnp.asarray(gx))
-    import contextlib
-
-    from cmtci.utils.device import analysis_cpu
-
     n_pad = ((n + chunk - 1) // chunk) * chunk
     pad = n_pad - n
     dt = np.asarray(gx).dtype if not hasattr(gx, "dtype") else gx.dtype
     # points and weights follow the grid's dtype (an f32 grid selects the
-    # TPU fast path end-to-end; mixed inputs would upcast the carry); the
-    # f64 default self-pins to the host CPU — callers under a TPU-pinned
-    # session must not need to know the device policy (per-kernel pinning,
-    # like sample_boundary_quantile's)
-    dev = analysis_cpu() if dt == np.float64 else contextlib.nullcontext()
-    with dev:
-        gxj = jnp.asarray(gx)
-        px = jnp.asarray(np.pad(px, (0, pad)), dtype=gxj.dtype)
-        py = jnp.asarray(np.pad(py, (0, pad)), dtype=gxj.dtype)
-        w = jnp.asarray(np.pad(np.ones(n), (0, pad)), dtype=gxj.dtype)
-        u = _accumulate(gxj, jnp.asarray(gy, dtype=gxj.dtype), px, py, w,
-                        gxj.dtype.type(eps), 1 if sign > 0 else -1, chunk)
+    # f32 path end-to-end; mixed inputs would upcast the carry)
+    gxj = jnp.asarray(gx)
+    px = jnp.asarray(np.pad(px, (0, pad)), dtype=gxj.dtype)
+    py = jnp.asarray(np.pad(py, (0, pad)), dtype=gxj.dtype)
+    w = jnp.asarray(np.pad(np.ones(n), (0, pad)), dtype=gxj.dtype)
+    u = _accumulate(gxj, jnp.asarray(gy, dtype=gxj.dtype), px, py, w,
+                    gxj.dtype.type(eps), 1 if sign > 0 else -1, chunk)
     return u / n

@@ -1,7 +1,7 @@
 """Multi-process / multi-host initialization (SURVEY §5.8).
 
-The reference is strictly single-process; the TPU-native scaling story adds
-(a) in-process data parallelism over ICI via parallel/sharded.py and (b)
+The reference is strictly single-process; the scaling story here adds
+(a) in-process data parallelism across devices via parallel/sharded.py and (b)
 multi-host execution over DCN via jax.distributed. This module is the thin
 entry point for (b): call `initialize()` once per process before any jax
 computation, then build meshes over `jax.devices()` (which then spans all
@@ -20,7 +20,7 @@ def initialize(coordinator_address: str | None = None,
                require: bool = False) -> bool:
     """Initialize jax.distributed; returns True if multi-process init ran.
 
-    With no arguments, jax's own autodetection runs (TPU-pod GCE metadata,
+    With no arguments, jax's own autodetection runs (cloud metadata,
     JAX_COORDINATOR_ADDRESS, Slurm/MPI launchers, ...). On a plain
     single-host machine autodetection fails — that is swallowed and False is
     returned unless `require=True` or any argument was passed explicitly.

@@ -4,7 +4,7 @@ Reference: lucas_equipotential_test_v3.py:363-448 — aggregate cloud g_M
 stats, reference-law comparison, per-n and cumulative convergence rows,
 4-family comparison.
 
-TPU-first: batch_potential's per-point scalar loop (the reference's hot
+Device-first: batch_potential's per-point scalar loop (the reference's hot
 path at :153-162) is the batched green_potential kernel; the cumulative
 stats (quadratic total work in the reference, :310-327) reuse per-n g
 values — mathematically identical because g is a per-point quantity.
@@ -36,7 +36,7 @@ class EquipotentialConfig:
     )
     run_family_comparison: bool = True
     cloud_backend: str = "aberth"
-    potential_dtype: str = "float64"  # "float32" = the f32 TPU cloud-green
+    potential_dtype: str = "float64"  # "float32" = the f32 Pallas cloud-green
     # head (kernels/mandelbrot_pallas.green_cloud_f32): identical escape
     # set / k on measured clouds, g rel err ~1e-7 median (deep escapers
     # carry chaotic f32 trajectory noise at negligible absolute size)
@@ -56,8 +56,7 @@ def batch_potential(cloud: np.ndarray, max_iter: int, escape_radius: float,
     dropped between stages instead of riding along for the interior's full
     iteration budget. With cache_dir the result is stored keyed by
     (cloud digest, max_iter, R, dtype) — SURVEY §5.4 resume.
-    dtype="float32" runs the f32 Pallas head on the default (TPU) device;
-    the f64 default stays on the host CPU by the device policy. With `mesh`
+    dtype="float32" runs the f32 Pallas head on the default device. With `mesh`
     (f64 path) each compaction stage's active batch is point-sharded over
     the mesh (parallel.sharded.green_stage_executor — bitwise equal).
     """
@@ -135,7 +134,7 @@ def cumulative_stats(cfg: EquipotentialConfig, family: str | None = None,
     # flat concatenation, and extraction preserves order — so the escaped
     # values of every prefix are prefixes of ONE global escaped extraction.
     # summarize_g re-masked each prefix (five boolean gathers of up to the
-    # full array per row, ~0.14 s of the warm TPU pipeline); this extracts
+    # full array per row); this extracts
     # once and hands each row its slice, value-identical per row.
     g_flat = np.concatenate([g for _, g in per_n_g])
     esc = g_flat[g_flat > 0]
@@ -187,8 +186,8 @@ def run_equipotential(cfg: EquipotentialConfig, out_dir: str | None = None,
     with timer.stage("potential"):
         # ONE device solve for lucas + the other families: g is a per-point
         # quantity, so batch composition cannot change it (the same reason
-        # the per-n split can reuse this solve) — one relay roundtrip
-        # replaces the round-3 two-solve structure
+        # the per-n split can reuse this solve) — one dispatch replaces
+        # the round-3 two-solve structure
         all_pts = (np.concatenate([c_inv, *fam_clouds]) if fam_clouds
                    else c_inv)
         g_all, it_all, phi_all = batch_potential(

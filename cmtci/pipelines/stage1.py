@@ -41,10 +41,8 @@ def sample_boundary_band(cfg: Stage1Config, rng) -> np.ndarray:
     xs = np.linspace(-2.25, 1.25, cfg.nx)
     ys = np.linspace(-1.25, 1.25, cfg.ny)
     cr, ci = np.meshgrid(xs, ys, indexing="xy")
-    from cmtci.utils.device import analysis_cpu
 
-    with analysis_cpu():  # f64 escape loop: host CPU by the device policy
-        esc, d = mb.de_field_stage1(cr, ci, max_iter=cfg.max_iter, bailout=cfg.bailout)
+    esc, d = mb.de_field_stage1(cr, ci, max_iter=cfg.max_iter, bailout=cfg.bailout)
     d = np.asarray(d)
     keep = (d > cfg.threshold_low) & (d < cfg.threshold_high)
     cand = np.column_stack([cr[keep], ci[keep]])
@@ -98,14 +96,11 @@ def run_stage1(cfg: Stage1Config, outdir: str | None = None):
             "threshold_low/threshold_high/bailout (both matchers need a "
             "non-empty Mandelbrot sample)")
     if cfg.matcher == "sinkhorn":
-        from cmtci.utils.device import analysis_cpu
 
         d = np.sqrt(((xa[:, None, :] - xb[None, :, :]) ** 2).sum(-1))
         # raw euclidean cost + reg, POT-default 1000 iterations, like the
-        # reference's ot.sinkhorn call (construct_stage1_clean.py:110-116);
-        # f64 lax.scan stays on the host CPU by the device policy
-        with analysis_cpu():
-            plan = np.asarray(sinkhorn_log(d, iters=1000, eps=cfg.sinkhorn_reg))
+        # reference's ot.sinkhorn call (construct_stage1_clean.py:110-116)
+        plan = np.asarray(sinkhorn_log(d, iters=1000, eps=cfg.sinkhorn_reg))
         matches = plan.argmax(axis=1)
     else:
         matches = greedy_match(xa, xb)

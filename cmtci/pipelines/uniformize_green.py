@@ -33,8 +33,7 @@ class GreenUniformizeConfig:
     enable_jitter: bool = True
     do_inverse_check: bool = True
     # "float32" runs the hot map evaluations (Phi quadrature + log-kernel
-    # modulus, 20000x2000) on the default device in f32 — the TPU fast path
-    # (186x Phi_raw / 15x g_real, VALIDATION.md) with the documented error
+    # modulus, 20000x2000) on the default device in f32 with the documented error
     # budget: Im Phi mod 2pi p99 ~1e-5 rad, g abs err <= 1e-4. The dense
     # lstsq fit and g_shift calibration stay f64 on the host.
     map_dtype: str = "float64"
@@ -53,7 +52,7 @@ def run_green_uniformization(lucas_points_xy, cfg: GreenUniformizeConfig,
 
     With cache_dir the fitted map state (the dense N_BDY lstsq, the
     pipeline's one-time cost) is cached keyed by (input-points digest, fit
-    config) — the TPU-native form of the reference's reusable map-state NPZ
+    config) — the array-native form of the reference's reusable map-state NPZ
     (lucas_to_cardioid_v40_reference.py:655-668).
     """
     from dataclasses import asdict
@@ -82,7 +81,7 @@ def run_green_uniformization(lucas_points_xy, cfg: GreenUniformizeConfig,
 
     def _fit():
         # the f32 perf path takes the device-f32 QR fit (σ to 1.9e-7 of the
-        # reference lstsq, dense flops on the MXU, f64 host-residual
+        # reference lstsq, dense flops on the device, f64 host-residual
         # refinement); the f64 parity path keeps np.linalg.lstsq
         rm = riemann.fit_riemann_map(poly_l, n_bdy=cfg.n_bdy, ridge=cfg.ridge,
                                      inward_eps=cfg.inward_eps, gauss_n=cfg.gauss_n,
@@ -146,7 +145,7 @@ def run_green_uniformization(lucas_points_xy, cfg: GreenUniformizeConfig,
         # on the interior points. Re Φ IS g (v40:259-264) and
         # f = exp(-g)·exp(-i·Im Φ_raw), so the rm.phi + rm.f + rm.f(bdy) +
         # rm.g_real(bdy) sequence would evaluate the same two kernels six
-        # times across four relay roundtrips for nothing.
+        # times across four dispatches for nothing.
         z_bdy_in = slightly_inside(rm.bdy_z, rm.a, cfg.inward_eps)
         if cfg.map_dtype == "float32":
             # derive g_shift from THIS evaluation (median g(bdy-in) = 0,

@@ -21,12 +21,12 @@ from cmtci.stats import variogram as vg
 
 @dataclass
 class VariogramConfig:
-    # "float32" runs the all-pairs binning on the TPU via the scatter-free
-    # masked-reduction kernel (78x; gamma within ~4e-6 of f64)
+    # "float32" runs the all-pairs binning on the device via the scatter-free
+    # masked-reduction kernel (gamma within ~4e-6 of f64)
     vario_dtype: str = "float64"
     # "float32" computes the DE boundary proxy, escape potential and cloud
-    # log-potential on the TPU in f32 (the f64 default stays on the host CPU
-    # by the device policy; f32 flips borderline DE-threshold points only)
+    # log-potential on the device in f32 (f32 flips borderline DE-threshold
+    # points only)
     field_dtype: str = "float64"
     n_list: tuple = (30, 60, 90, 120, 180, 240, 300)
     boundary_grid: int = 700
@@ -49,11 +49,7 @@ class VariogramConfig:
 
 def run_variograms(cfg: VariogramConfig, out_csv: str | None = None,
                    mesh=None):
-    import contextlib
-
     import jax.numpy as jnp
-
-    from cmtci.utils.device import analysis_cpu
 
     rng = np.random.RandomState(cfg.seed)
     f32 = cfg.field_dtype == "float32"
@@ -69,19 +65,16 @@ def run_variograms(cfg: VariogramConfig, out_csv: str | None = None,
     ys = np.linspace(cfg.domain[2], cfg.domain[3], cfg.grid_ny)
     gx, gy = np.meshgrid(xs, ys, indexing="xy")
 
-    # U_C = (1/N) sum log(1/(r+eps)) (variograms_construct_mandelbrot.py:128-146);
-    # f64 potentials/escape loops stay on the host CPU by the device policy
-    # (an f64 escape loop compiled on the TPU is the documented wedge hazard)
-    with contextlib.nullcontext() if f32 else analysis_cpu():
-        u_c = np.asarray(cloud_log_potential(
-            np.asarray(gx, dtype=np.float32 if f32 else np.float64),
-            np.asarray(gy, dtype=np.float32 if f32 else np.float64),
-            c_pts, eps=cfg.log_pot_eps, sign=-1))
-        cr, ci = mb.complex_grid(cfg.domain, cfg.grid_nx, cfg.grid_ny, dtype=fdt)
-        u_m = np.asarray(mb.escape_potential_grid(cr, ci, max_iter=cfg.potential_max_iter,
-                                                  escape_r=cfg.potential_r,
-                                                  normalization="two_pow_n"))
-        u_m = np.asarray(mb.smooth5(u_m))
+    # U_C = (1/N) sum log(1/(r+eps)) (variograms_construct_mandelbrot.py:128-146)
+    u_c = np.asarray(cloud_log_potential(
+        np.asarray(gx, dtype=np.float32 if f32 else np.float64),
+        np.asarray(gy, dtype=np.float32 if f32 else np.float64),
+        c_pts, eps=cfg.log_pot_eps, sign=-1))
+    cr, ci = mb.complex_grid(cfg.domain, cfg.grid_nx, cfg.grid_ny, dtype=fdt)
+    u_m = np.asarray(mb.escape_potential_grid(cr, ci, max_iter=cfg.potential_max_iter,
+                                              escape_r=cfg.potential_r,
+                                              normalization="two_pow_n"))
+    u_m = np.asarray(mb.smooth5(u_m))
 
     def norm(u):
         return (u - np.nanmin(u)) / (np.nanmax(u) - np.nanmin(u) + 1e-12)
@@ -96,8 +89,8 @@ def run_variograms(cfg: VariogramConfig, out_csv: str | None = None,
 
     dt = jnp.float32 if cfg.vario_dtype == "float32" else None
     # one fused device call for all three binnings on the f32 path (same
-    # host-RNG draw order as the sequential calls); f64 stays sequential
-    # on the host CPU; a mesh shards the three binnings' i-rows over its
+    # host-RNG draw order as the sequential calls); f64 stays sequential;
+    # a mesh shards the three binnings' i-rows over its
     # devices (SURVEY §5.8 data parallelism)
     r_c, g_c, g_m, g_x, _, _, _ = vg.three_semivariograms(
         u_c_n, u_m_n, gx, gy, r_bins, cfg.m_target, rng, dtype=dt, mesh=mesh)

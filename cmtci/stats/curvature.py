@@ -8,7 +8,7 @@ Reference behavior (reimplemented):
   * PCA-eccentricity proxy (kNN covariance λ_min/Σλ) —
     tci_construct_mandelbrot_v002_fixed.py:100-108
 
-TPU-first: the per-point Python loop becomes one batched windowed gather +
+Device-first: the per-point Python loop becomes one batched windowed gather +
 a vmapped 3x3 normal-equation solve.
 """
 
@@ -64,8 +64,8 @@ def _localpoly_core(xy_win, m: int):
     ata = jnp.einsum("nwi,nwj->nij", a, a)
     atx = jnp.einsum("nwi,nw->ni", a, xy_win[..., 0])
     aty = jnp.einsum("nwi,nw->ni", a, xy_win[..., 1])
-    # closed-form batched 3x3 solve (Cramer): TPU XLA has no f64 LU, and the
-    # elementwise form is faster than a batched linalg.solve anyway
+    # closed-form batched 3x3 solve (Cramer): the elementwise form is
+    # faster than a batched linalg.solve
     cx = _solve3(ata, atx)
     cy = _solve3(ata, aty)
 
@@ -91,26 +91,22 @@ def localpoly_curvature(p, neighbors: int = 7, closed: bool = True):
         raise ValueError("neighbors must be >= 2 for a meaningful quadratic fit.")
     if n < 2 * m + 1:
         raise ValueError(f"Need at least {2*m+1} points; got {n}.")
-    from cmtci.utils.device import analysis_cpu
 
     idx = _window_indices(n, m, closed)
-    with analysis_cpu():  # f64 window fits stay off emulated-f64 TPUs
-        kappa, ks, speed, x1, y1, x2, y2 = _localpoly_core(jnp.asarray(p)[idx], m)
+    kappa, ks, speed, x1, y1, x2, y2 = _localpoly_core(jnp.asarray(p)[idx], m)
     aux = dict(xprime=np.asarray(x1), yprime=np.asarray(y1), x2=np.asarray(x2), y2=np.asarray(y2))
     return np.asarray(kappa), np.asarray(ks), np.asarray(speed), aux
 
 
 def gradient_curvature(p):
     """np.gradient-based estimator (spatial_stats_phase3.py:18-25)."""
-    from cmtci.utils.device import analysis_cpu
 
-    with analysis_cpu():  # f64 gradient math stays off emulated-f64 TPUs
-        p = jnp.asarray(p, dtype=jnp.float64)
-        dx = jnp.gradient(p[:, 0])
-        dy = jnp.gradient(p[:, 1])
-        ddx = jnp.gradient(dx)
-        ddy = jnp.gradient(dy)
-        return np.asarray(jnp.abs(dx * ddy - dy * ddx) / (dx**2 + dy**2) ** 1.5)
+    p = jnp.asarray(p, dtype=jnp.float64)
+    dx = jnp.gradient(p[:, 0])
+    dy = jnp.gradient(p[:, 1])
+    ddx = jnp.gradient(dx)
+    ddy = jnp.gradient(dy)
+    return np.asarray(jnp.abs(dx * ddy - dy * ddx) / (dx**2 + dy**2) ** 1.5)
 
 
 @functools.partial(jax.jit, static_argnames=("k", "chunk"))
@@ -147,13 +143,10 @@ def pca_eccentricity(pts, k: int = 6, dtype=None):
     """kNN covariance λ_min/Σλ (tci_construct_mandelbrot_v002_fixed.py:100-108).
 
     The reference queries a KDTree per point; here it's a chunked dense
-    top-k (O(chunk·N) memory). dtype=None runs f64 on
-    the host CPU (device policy: the N² distance matrix off emulated-f64
-    TPUs); dtype=jnp.float32 keeps the default device — the TPU fast path
-    the 4x-grid TCI pipeline uses (the eccentricity feeds a correlation
+    top-k (O(chunk·N) memory). dtype=None runs f64; dtype=jnp.float32 is
+    the fast path the 4x-grid TCI pipeline uses (the eccentricity feeds a correlation
     coefficient; f32 is far below that statistic's sampling noise).
     """
-    from cmtci.utils.device import analysis_cpu
 
     pts = np.asarray(pts)
     if np.iscomplexobj(pts):
@@ -163,5 +156,4 @@ def pca_eccentricity(pts, k: int = 6, dtype=None):
     if dtype is not None and dtype != jnp.float64:
         with jax.enable_x64(False):
             return np.asarray(_pca_ecc(jnp.asarray(xy, dtype), int(k)))
-    with analysis_cpu():  # f64 all-pairs stay off emulated-f64 TPUs
-        return np.asarray(_pca_ecc(jnp.asarray(xy), int(k)))
+    return np.asarray(_pca_ecc(jnp.asarray(xy), int(k)))

@@ -5,7 +5,7 @@ kernel (k=20, sigma = eps_scale * median kNN distance), symmetrize, row-
 normalize to a Markov matrix, top-n_eigs eigenpairs of the symmetrized P,
 and an L2 spectral distance on leading eigenvalues.
 
-TPU-first: the kNN search is a blocked dense top-k on device (the clouds
+Device-first: the kNN search is a blocked dense top-k on device (the clouds
 are <=150k points, 2-D); the small eigenproblem runs via scipy eigsh on the
 sparse symmetrized Markov matrix (host) with a dense jnp.linalg.eigh path
 for small n.
@@ -23,6 +23,7 @@ from scipy.sparse.linalg import eigsh
 
 
 from cmtci.utils.arrays import as_xy as _xy  # shared (N,2) coercion
+from cmtci.utils.device import highest_precision
 
 
 @functools.partial(jax.jit, static_argnames=("k", "chunk"))
@@ -112,10 +113,10 @@ def build_sparse_kernel(points, k: int = 20, eps_scale: float = 0.5, mesh=None,
         from cmtci.utils.device import analysis_dtype_ctx
 
         k_cand = min(int(k) + 8, n - 1)
-        dt, dev, x64_ctx = analysis_dtype_ctx(dtype)
+        dt, x64_ctx = analysis_dtype_ctx(dtype)
         hi = xy.astype(np.float32)
         lo = (xy - hi).astype(np.float32)
-        with dev, x64_ctx:
+        with x64_ctx:
             cand = _knn_hilo(jnp.asarray(hi, dt), jnp.asarray(lo, dt), k_cand)
         cand = np.asarray(cand)
         d2 = ((xy[cand] - xy[:, None, :]) ** 2).sum(-1)  # exact f64
@@ -123,10 +124,8 @@ def build_sparse_kernel(points, k: int = 20, eps_scale: float = 0.5, mesh=None,
         idxs = np.take_along_axis(cand, order, axis=1)
         dists = np.sqrt(np.take_along_axis(d2, order, axis=1))
     else:
-        from cmtci.utils.device import analysis_cpu
 
-        with analysis_cpu():  # f64 kNN stays off emulated-f64 TPUs
-            dists, idxs = _knn(jnp.asarray(xy), int(k))
+        dists, idxs = _knn(jnp.asarray(xy), int(k))
     # only the O(n²) neighbor SEARCH runs at the requested dtype; the O(nk)
     # kernel weights are always f64 — f32 exp underflows to 0 for isolated
     # points (d/σ ≳ 13), leaving zero/subnormal kernel rows whose Markov
@@ -152,13 +151,14 @@ def markov_from_kernel(kmat):
 
 
 @functools.partial(jax.jit, static_argnames=("m",))
+@highest_precision
 def _lanczos_dense(s, m: int):
     """m-step Lanczos with full reorthogonalization on a dense symmetric s.
 
-    Dense matvecs are the TPU-shaped formulation (the sparse kNN matvec is
-    gather/scatter-bound — same negative result as the FEM BCOO CG,
+    Dense matvecs are the device-shaped formulation (the sparse kNN matvec
+    is gather/scatter-bound — same negative result as the FEM BCOO CG,
     VALIDATION.md); at the reference's cloud sizes (≤40k) the n² matvec is
-    MXU-trivial. Returns (tridiag alphas (m,), betas (m-1,), basis Q (m,n)).
+    cheap. Returns (tridiag alphas (m,), betas (m-1,), basis Q (m,n)).
     """
     n = s.shape[0]
     v = jax.random.normal(jax.random.key(0), (n,), dtype=s.dtype)
@@ -201,11 +201,11 @@ def _dense_from_sparse_device(s_csr, dtype):
 def spectral_embedding_device(p, n_eigs: int = 8, m: int = 0, dtype=None):
     """Device Lanczos eigenpairs of the symmetrized Markov matrix.
 
-    The TPU-native replacement for scipy eigsh (VERDICT r3 item 6): dense
+    The device replacement for scipy eigsh (VERDICT r3 item 6): dense
     n² matvecs + full-reorthogonalization Lanczos in one jit, tridiagonal
     eigensolve on the host (m×m, trivial). dtype=None follows x64 (f64 on a
     CPU device: eigenvalue agreement vs eigsh ≤1e-10 — pinned in tests);
-    pass jnp.float32 on a TPU session (agreement ~1e-6, below the spectral
+    pass jnp.float32 on a GPU session (agreement ~1e-6, below the spectral
     distances the pipeline compares). Reference:
     dynamical_embeddings_phase7.py:78-102.
     """
@@ -221,8 +221,8 @@ def spectral_embedding_device(p, n_eigs: int = 8, m: int = 0, dtype=None):
     m = int(m) if m else min(max(20 * k, 120, min(600, n // 12)), n)
     from cmtci.utils.device import analysis_dtype_ctx
 
-    dt, dev, x64_ctx = analysis_dtype_ctx(dtype)
-    with dev, x64_ctx:
+    dt, x64_ctx = analysis_dtype_ctx(dtype)
+    with x64_ctx:
         sd = _dense_from_sparse_device(s, dt)
         alphas, betas, q = _lanczos_dense(sd, m)
         alphas = np.asarray(alphas, np.float64)

@@ -7,7 +7,7 @@ Reference:
   * sliding-window local Pearson correlation map (half-window win, window
     slice [i-win:i+win] of size 2*win) — Potentials.py:77-95
 
-TPU-first: the reference's pure-Python double loop over pixels becomes
+Device-first: the reference's pure-Python double loop over pixels becomes
 box-filter moment sums (one pass of cumulative sums), mathematically equal
 to the per-window Pearson r.
 """

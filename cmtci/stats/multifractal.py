@@ -6,7 +6,7 @@ log Z vs log eps, D(q) = tau/(q-1), Legendre alpha = dtau/dq,
 f(alpha) = q*alpha - tau. Box counting (np.unique grouping) is host-side
 (data-dependent sizes); the Z/regression math is vectorized. backend=
 "device" replaces the host integer-key grouping with a fixed-shape dense
-count grid + partition sums in ONE jit (all scales, all q) — the TPU path
+count grid + partition sums in ONE jit (all scales, all q) — the device path
 for clouds beyond reference scale (VERDICT r3 item 8).
 """
 
@@ -103,8 +103,8 @@ def box_counts_grid_device(points, scales, q_values, grid: int = 2048, dtype=Non
             "grid= or drop the smallest scales")
     from cmtci.utils.device import analysis_dtype_ctx
 
-    dt, dev, x64_ctx = analysis_dtype_ctx(dtype)
-    with dev, x64_ctx:
+    dt, x64_ctx = analysis_dtype_ctx(dtype)
+    with x64_ctx:
         logz, nonempty = _z_device(jnp.asarray(pts[:, 0], dt), jnp.asarray(pts[:, 1], dt),
                                    jnp.asarray(scales, dt), jnp.asarray(q_values, dt),
                                    int(grid))
@@ -118,7 +118,7 @@ def multifractal_spectrum(points, q_values=None, scales=None, min_count_boxes: i
     """Full multifractal analysis; returns dict(q, tau, Dq, alpha, f_alpha, scales, Z).
 
     backend="device" computes the box counts/partition sums on the default
-    jax device (dtype=jnp.float32 for a TPU session); "host" is the
+    jax device (dtype=jnp.float32 for a GPU session); "host" is the
     reference-parity integer-key grouping."""
     pts = np.asarray(points)  # complex check BEFORE the float cast (which
     if np.iscomplexobj(pts):  # would silently drop the imaginary part)

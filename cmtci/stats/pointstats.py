@@ -52,7 +52,8 @@ def _hilo_spill(hi, lo):
     """Exact int32 pair-count accumulation past 2^31: spill lo's high bits
     into hi every block (lo stays < 2^20 + one block's pairs; hi counts
     2^20-pair units — exact up to 2^51 total pairs). The device heads stay
-    pure int32 (TPU x64 is emulated), the host reconstructs int64."""
+    pure int32 (the f32 paths trace with x64 off), the host reconstructs
+    int64."""
     carry = lo >> 20
     return hi + carry, lo - (carry << 20)
 
@@ -103,12 +104,12 @@ def _shell_counts(points, r_max: float, dr: float, dtype=None, mesh=None):
     """(r_vals, shell counts over [r, r+dr), n, rho): one O(N²) pass shared
     by g(r) and Ripley K.
 
-    dtype=jnp.float32 runs the pair histogram on the default (TPU) device
+    dtype=jnp.float32 runs the pair histogram on the default device
     via the masked-reduction head (counts exact via the (hi, lo) int32
     carry-spill — no 65536-point pair ceiling; f32 distances can land
     borderline pairs one bin over vs f64 — the documented opt-in for
     beyond-reference cloud sizes where the host O(n²) pass is the stage
-    wall). f64 (default) stays on the host CPU by the device policy.
+    wall). f64 (default) keeps the exact host-order path.
     With `mesh` the pass shards its i-rows over the mesh
     (parallel.sharded.sharded_shell_counts).
     """
@@ -123,16 +124,17 @@ def _shell_counts(points, r_max: float, dr: float, dtype=None, mesh=None):
     r_vals = np.arange(0, r_max, dr)
     from cmtci.utils.device import analysis_dtype_ctx
 
-    dt, dev, x64_ctx = analysis_dtype_ctx(dtype)
-    with dev, x64_ctx:  # f64 all-pairs loops stay off emulated-f64 TPUs
+    dt, x64_ctx = analysis_dtype_ctx(dtype)
+    with x64_ctx:
         edges = jnp.asarray(np.concatenate([r_vals, [r_vals[-1] + dr]]), dt)
         xyd = jnp.asarray(xy, dt)
         if dtype is None:
             # host path: the scatter-add histogram is the fast CPU shape
             counts = np.asarray(_pair_hist(xyd, edges, len(r_vals)))
         else:
-            # device path: scatter-free masked reductions (TPU scatters
-            # serialize; same reformulation as the device variograms) with
+            # device path: scatter-free masked reductions (scatters
+            # serialize on duplicate indices; same reformulation as the
+            # device variograms) with
             # exact (hi, lo) int32 counts — no 65536-point pair ceiling,
             # only the per-block bound _auto_chunk sizes away
             hi, lo = _pair_hist_masked(xyd, edges, len(r_vals),
@@ -183,12 +185,11 @@ def hausdorff(a, b, dtype=None) -> float:
     """Symmetric Hausdorff distance (exact; equals scipy's directed pair).
 
     dtype=jnp.float32 runs the two blocked O(n·m) scans on the default
-    (TPU) device (~1e-7 relative vs f64 — squared distances in f32);
-    f64 (default) stays on the host CPU by the device policy."""
+    device (~1e-7 relative vs f64 — squared distances in f32)."""
     from cmtci.utils.device import analysis_dtype_ctx
 
-    dt, dev, x64_ctx = analysis_dtype_ctx(dtype)
-    with dev, x64_ctx:
+    dt, x64_ctx = analysis_dtype_ctx(dtype)
+    with x64_ctx:
         a = jnp.asarray(_xy(a), dt)
         b = jnp.asarray(_xy(b), dt)
         return float(jnp.maximum(_directed_hausdorff(a, b), _directed_hausdorff(b, a)))

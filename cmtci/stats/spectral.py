@@ -10,7 +10,7 @@ Reference behavior (reimplemented):
   * kernel-eigenvalue spectral distance (dense gaussian kernel, top-K
     eigenvalues, L2/sqrt(K)) — tci_construct_mandelbrot_v002_fixed.py:110-118
 
-TPU-first: bootstrap resampling is a single vmapped batch of closed-form
+Device-first: bootstrap resampling is a single vmapped batch of closed-form
 least-squares fits over jax.random index draws (vs a Python loop of sklearn
 fits in the reference).
 """
@@ -132,14 +132,12 @@ def fit_slope_bootstrap(freqs, spectrum, fmin: float, fmax: float,
         # uses a <5 skip; phase4b fits any non-empty range).
         nan = float("nan")
         return nan, nan, (nan, nan)
-    from cmtci.utils.device import analysis_cpu
 
     x = np.log10(freqs[m])
     y = np.log10(spectrum[m])
     slope, _, r2 = _ols_slope_r2(x, y)
-    with analysis_cpu():  # f64 bootstrap fits stay off emulated-f64 TPUs
-        slopes = np.asarray(_bootstrap_slopes(jnp.asarray(x), jnp.asarray(y),
-                                              jax.random.PRNGKey(seed), int(n_bootstrap)))
+    slopes = np.asarray(_bootstrap_slopes(jnp.asarray(x), jnp.asarray(y),
+                                          jax.random.PRNGKey(seed), int(n_bootstrap)))
     # a resample can draw all-identical x on very short ranges -> nan slope
     lo, hi = np.nanpercentile(slopes, [2.5, 97.5])
     return float(slope), float(r2), (float(lo), float(hi))
@@ -157,15 +155,11 @@ def spectral_distance(x, y, top_k: int = 30, sigma: float = 0.05) -> float:
     """Kernel-eigenvalue spectral distance (tci_..._v002_fixed.py:110-118).
 
     The reference uses nonsymmetric eigvals of a symmetric matrix then sorts
-    real parts — identical spectrum; we use eigvalsh. f64 eigvalsh is
-    unimplemented on TPU, so the solve pins to the host CPU like every
-    other f64 all-pairs analysis kernel (device policy, utils/device.py).
+    real parts — identical spectrum; we use eigvalsh.
     """
-    from cmtci.utils.device import analysis_cpu
 
-    with analysis_cpu():
-        ax = jnp.asarray(_xy(x))
-        by = jnp.asarray(_xy(y))
-        w1 = _kernel_eigs(ax, sigma, top_k)
-        w2 = _kernel_eigs(by, sigma, top_k)
-        return float(jnp.linalg.norm(w1 - w2) / jnp.sqrt(top_k))
+    ax = jnp.asarray(_xy(x))
+    by = jnp.asarray(_xy(y))
+    w1 = _kernel_eigs(ax, sigma, top_k)
+    w2 = _kernel_eigs(by, sigma, top_k)
+    return float(jnp.linalg.norm(w1 - w2) / jnp.sqrt(top_k))

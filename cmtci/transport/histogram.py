@@ -22,7 +22,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cmtci.utils.device import analysis_cpu
 
 
 @functools.partial(jax.jit, static_argnames=("bins",))
@@ -84,18 +83,22 @@ def _sep_correlate_nearest(h, kernel, radius: int):
     bitwise-equal to scipy — which is what closes the tracker's stage-3
     parity residual (the old linear-sweep order differed by ~3e-15/bin,
     amplified to ~1e-6 in the stage metrics through the eps floor + log).
+    The taps run as a loop, not unrolled: the coupling pipeline's radii
+    reach ~180, and an unrolled graph that size took minutes to compile
+    for the GPU.
     """
     def corr1(a):  # along axis 0
         ap = jnp.concatenate(
             [jnp.repeat(a[:1], radius, axis=0), a, jnp.repeat(a[-1:], radius, axis=0)], axis=0
         )
         n = a.shape[0]
-        out = kernel[radius] * a
-        for k in range(radius, 0, -1):  # scipy iterates pairs outermost-first
-            left = jax.lax.dynamic_slice_in_dim(ap, radius - k, n, axis=0)
-            right = jax.lax.dynamic_slice_in_dim(ap, radius + k, n, axis=0)
-            out = out + kernel[radius + k] * (left + right)
-        return out
+
+        def tap(i, out):  # k = radius - i: scipy iterates pairs outermost-first
+            left = jax.lax.dynamic_slice_in_dim(ap, i, n, axis=0)
+            right = jax.lax.dynamic_slice_in_dim(ap, 2 * radius - i, n, axis=0)
+            return out + kernel[2 * radius - i] * (left + right)
+
+        return jax.lax.fori_loop(0, radius, tap, kernel[radius] * a)
 
     h = corr1(h)
     h = corr1(h.T).T
@@ -140,10 +143,9 @@ def gaussian_filter_nearest(h, sigma: float, truncate: float = 4.0):
 def to_prob(cloud, bins: int, domain, eps: float = 1e-12):
     """Probability histogram of a complex cloud (tci_..._v002_fixed.py:80-84)."""
     cloud = np.asarray(cloud)
-    with analysis_cpu():
-        h = histogram2d(jnp.asarray(cloud.real), jnp.asarray(cloud.imag), bins, domain)
-        h = jnp.maximum(h, eps)
-        return h / h.sum()
+    h = histogram2d(jnp.asarray(cloud.real), jnp.asarray(cloud.imag), bins, domain)
+    h = jnp.maximum(h, eps)
+    return h / h.sum()
 
 
 def _histogram2d_np(x, y, bins: int, domain):
@@ -200,17 +202,15 @@ def mollified_histogram(cloud, bins: int, domain, sigma_bins: float, eps: float 
         xi = np.pad(cloud.imag.ravel(), (0, npad - n), constant_values=domain[3] + 1.0)
         h = sharded_histogram(jnp.asarray(xr), jnp.asarray(xi), bins, domain, mesh)
     else:
-        with analysis_cpu():
-            h = histogram2d(jnp.asarray(cloud.real), jnp.asarray(cloud.imag), bins, domain)
+        h = histogram2d(jnp.asarray(cloud.real), jnp.asarray(cloud.imag), bins, domain)
     from cmtci.utils.artifacts import fetch
 
-    with analysis_cpu():
-        h = jnp.asarray(fetch(h))
+    h = jnp.asarray(fetch(h))
+    h = jnp.maximum(h, eps)
+    if sigma_bins and sigma_bins > 0:
+        h = gaussian_filter_nearest(h, float(sigma_bins))
         h = jnp.maximum(h, eps)
-        if sigma_bins and sigma_bins > 0:
-            h = gaussian_filter_nearest(h, float(sigma_bins))
-            h = jnp.maximum(h, eps)
-        return h / h.sum()
+    return h / h.sum()
 
 
 def kl(p, x, eps: float = 1e-12):

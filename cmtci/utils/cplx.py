@@ -1,9 +1,9 @@
 """Complex arithmetic as (re, im) float pairs.
 
-TPU has no complex128 (and only partial complex64), so every complex-valued
-kernel in cmtci carries complex numbers as a pair of real arrays. This keeps
-one code path for CPU float64 parity tests and TPU execution, and it is also
-the natural representation inside Pallas kernels.
+Every complex-valued kernel in cmtci carries complex numbers as a pair of
+real arrays. This keeps one code path for CPU float64 parity tests and
+device execution (not every backend has complex128), and it is also the
+natural representation inside Pallas kernels.
 
 All functions broadcast like the underlying jnp ops. A "pair" is any tuple
 ``(re, im)`` of equal-shape arrays.

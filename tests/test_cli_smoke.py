@@ -75,7 +75,7 @@ def test_suite_cli(tmp_path, capsys):
 
 
 def test_platform_aware_defaults(monkeypatch):
-    """On a TPU session every dtype/backend knob defaults to its validated
+    """On a GPU session every dtype/backend knob defaults to its validated
     accel path; --parity (or an explicit value) opts out. VERDICT r4 item 6."""
     import argparse
 
@@ -87,7 +87,9 @@ def test_platform_aware_defaults(monkeypatch):
     cli._resolve_platform_defaults(ns)
     assert (ns.field_dtype, ns.de_impl) == ("float64", "jax")
 
-    monkeypatch.setattr(cli, "_session_tpu", lambda: True)
+    from cmtci.utils import device
+
+    monkeypatch.setattr(device, "on_gpu", lambda: True)
     for parity, want in ((False, ("float32", "pallas")),
                          (True, ("float64", "jax"))):
         ns = argparse.Namespace(cmd="tracker", field_dtype=None, de_impl=None,

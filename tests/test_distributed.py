@@ -6,7 +6,7 @@ coordinator, builds the cross-process device mesh with
 parallel.sharded.device_mesh, and runs ONE psum across both processes'
 devices; process 0 asserts the globally-reduced value. This exercises the
 actual DCN code path (jax.distributed + a collective through shard_map)
-without TPU hardware.
+without accelerator hardware.
 """
 
 import os

@@ -4,7 +4,7 @@ The device path replaces the host SuperLU solves of
 lucas_to_cardioid_v18_periodic_theta_crbins_artifacts.py:726-727 with one
 fused on-device Cholesky iteration; these tests pin it bitwise-close to the
 host rebuild (cmtci.maps.fem) on the CPU backend, in both f64 (exact) and
-f32+final-host-solve (TPU-session) configurations.
+f32+final-host-solve (GPU-session) configurations.
 """
 
 import numpy as np
@@ -55,7 +55,7 @@ class TestDeviceTheta:
         assert abs(dev[4] - host[4]) < 1e-9
 
     def test_f32_final_host_solve(self, blob):
-        # TPU-session configuration: f32 device iteration, final f64 host
+        # GPU-session configuration: f32 device iteration, final f64 host
         # solve at the converged θ. u/v must carry f64 solve accuracy: the
         # only deviation is the f32 θ trajectory (~1e-5 rad).
         import jax.numpy as jnp
@@ -170,7 +170,7 @@ class TestSliverCondensation:
 
     def test_neumann_solver_f32_on_sliver_system(self):
         # the public harmonic_conjugate(method='device') path must survive
-        # an f32 TPU-session default on a sliver-bearing operator — the
+        # an f32 GPU-session default on a sliver-bearing operator — the
         # weakly-pinned reduced system's f32 Cholesky is NOT positive-
         # definite (silent NaNs); DeviceNeumannSolver condenses + lifts.
         import jax.numpy as jnp

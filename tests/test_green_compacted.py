@@ -27,14 +27,3 @@ def test_compacted_stage_boundary_offsets(rng):
         g0, k0, pr, pi = mb.green_potential(pts.real, pts.imag, max_iter=600)
         np.testing.assert_array_equal(k, np.asarray(k0))
         np.testing.assert_array_equal(g, np.asarray(g0))
-
-
-def test_pallas_dwell_periodicity_option():
-    from cmtci.kernels.mandelbrot_pallas import mandelbrot_field_pallas
-
-    dom = (-2.1, 0.9, -1.5, 1.5)
-    a = np.asarray(mandelbrot_field_pallas(dom, 256, 32, max_iter=120, kind="dwell",
-                                           tile=(32, 256), periodicity=True))
-    b = np.asarray(mandelbrot_field_pallas(dom, 256, 32, max_iter=120, kind="dwell",
-                                           tile=(32, 256)))
-    np.testing.assert_array_equal(a, b)

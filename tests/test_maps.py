@@ -240,7 +240,7 @@ def test_riemann_qr32_solver_matches_lstsq():
 
 
 def test_riemann_f32_eval_budget():
-    """f32 evaluation path (the TPU fast path, 186x at full scale): Im Phi
+    """f32 evaluation path (the device fast path): Im Phi
     mod 2pi and |f| within the documented error budget vs f64."""
     import jax.numpy as jnp
 

@@ -7,10 +7,13 @@ from cmtci.kernels import mandelbrot as mb
 from cmtci.kernels.mandelbrot_pallas import mandelbrot_field_pallas
 
 DOM = (-2.1, 0.9, -1.5, 1.5)
+#: two block shapes of the Triton-route heads: the default and a wide one
+TILES = [(16, 32), (32, 128)]
 
 
-def test_dwell_matches_f64():
-    d32 = np.asarray(mandelbrot_field_pallas(DOM, 256, 64, max_iter=100, kind="dwell", tile=(32, 256)))
+@pytest.mark.parametrize("tile", TILES)
+def test_dwell_matches_f64(tile):
+    d32 = np.asarray(mandelbrot_field_pallas(DOM, 256, 64, max_iter=100, kind="dwell", tile=tile))
     cr, ci = mb.complex_grid(DOM, 256, 64)
     ref = np.asarray(mb.dwell_grid(np.asarray(cr), np.asarray(ci), max_iter=100))
     # f32 orbits diverge from f64 near the boundary; >=99% of pixels exact
@@ -18,16 +21,18 @@ def test_dwell_matches_f64():
     assert d32.dtype == np.float32
 
 
-def test_green_matches_f64():
-    g32 = np.asarray(mandelbrot_field_pallas(DOM, 256, 64, max_iter=60, kind="green", escape_r=4.0, tile=(32, 256)))
+@pytest.mark.parametrize("tile", TILES)
+def test_green_matches_f64(tile):
+    g32 = np.asarray(mandelbrot_field_pallas(DOM, 256, 64, max_iter=60, kind="green", escape_r=4.0, tile=tile))
     cr, ci = mb.complex_grid(DOM, 256, 64)
     ref = np.asarray(mb.escape_potential_grid(np.asarray(cr), np.asarray(ci), max_iter=60, escape_r=4.0, normalization="two_pow_n"))
     close = np.isclose(g32, ref, rtol=1e-4, atol=1e-7)
     assert close.mean() > 0.99
 
 
-def test_de_matches_f64():
-    d32 = np.asarray(mandelbrot_field_pallas(DOM, 256, 64, max_iter=80, kind="de", escape_r=4.0, tile=(32, 256)))
+@pytest.mark.parametrize("tile", TILES)
+def test_de_matches_f64(tile):
+    d32 = np.asarray(mandelbrot_field_pallas(DOM, 256, 64, max_iter=80, kind="de", escape_r=4.0, tile=tile))
     cr, ci = mb.complex_grid(DOM, 256, 64)
     esc, ref, _, _ = mb.de_field_std(np.asarray(cr), np.asarray(ci), max_iter=80, escape_r=4.0)
     ref = np.asarray(ref)
@@ -35,9 +40,39 @@ def test_de_matches_f64():
     assert close.mean() > 0.98
 
 
+def test_padding_crop_at_non_multiple_grid():
+    """A grid that is no block multiple is padded at its own spacing and
+    cropped: the result is the top-left corner of a larger grid with the
+    same pixel spacing, and still matches the f64 kernel."""
+    ny, nx = 37, 100  # neither a multiple of 16 nor of 32
+    d = np.asarray(mandelbrot_field_pallas(DOM, nx, ny, max_iter=80))
+    assert d.shape == (ny, nx)
+    dx = (DOM[1] - DOM[0]) / (nx - 1)
+    dy = (DOM[3] - DOM[2]) / (ny - 1)
+    big = (DOM[0], DOM[0] + 127 * dx, DOM[2], DOM[2] + 63 * dy)
+    full = np.asarray(mandelbrot_field_pallas(big, 128, 64, max_iter=80))
+    np.testing.assert_array_equal(d, full[:ny, :nx])
+    cr, ci = mb.complex_grid(DOM, nx, ny)
+    ref = np.asarray(mb.dwell_grid(np.asarray(cr), np.asarray(ci), max_iter=80))
+    assert (d == ref).mean() > 0.99
+
+
+def test_bucket_shape_is_a_block_multiple_power_of_two():
+    from cmtci.kernels.mandelbrot_pallas import _bucket_shape
+
+    for grid_n, tile, want in ((600, (16, 32), (1024, 1024)),
+                               (912, (16, 32), (1024, 1024)),
+                               (1025, (16, 32), (2048, 2048)),
+                               (5, (16, 32), (16, 32))):
+        ny, nx = _bucket_shape(grid_n, tile)
+        assert (ny, nx) == want
+        assert ny % tile[0] == 0 and nx % tile[1] == 0
+
+
 def test_tile_mismatch_raises():
-    with pytest.raises(ValueError):
-        mandelbrot_field_pallas(DOM, 100, 100, kind="dwell")
+    # Triton blocks are powers of two
+    with pytest.raises(ValueError, match="powers of two"):
+        mandelbrot_field_pallas(DOM, 100, 100, kind="dwell", tile=(24, 100))
 
 
 TCI_DOM = (-2.2, 1.2, -1.6, 1.6)
@@ -133,7 +168,7 @@ def test_sampler_pallas_guards():
 
 
 def test_green_cloud_f32_vs_f64():
-    """f32 TPU cloud-green head (round 3): identical escape set, k exact for
+    """f32 cloud-green head (round 3): identical escape set, k exact for
     nearly all points, g within f32 trajectory noise, deep escapers keep
     their tiny-but-positive f64-scaled g (no 2^-k underflow)."""
     from cmtci.kernels.mandelbrot_pallas import green_cloud_f32
@@ -185,28 +220,3 @@ def test_equipotential_f32_potential_path():
     assert o32["summary"]["escaped"] == o64["summary"]["escaped"]
     for key in ("g_median", "g_mean", "g_p90"):
         assert abs(o32["summary"][key] - o64["summary"][key]) < 1e-5
-
-
-def test_dwell_ms_exactness_and_guards():
-    """Opt-in Mariani–Silver dwell path (VERDICT r2 item 9): bitwise-equal
-    to the plain Pallas head at the tested configs, with some tiles filled;
-    bad stride/shape combinations raise."""
-    import pytest
-
-    from cmtci.kernels.mandelbrot_pallas import (dwell_field_ms,
-                                                 mandelbrot_field_pallas)
-
-    dom = (-2.1, 0.9, -1.5, 1.5)
-    for stride, mi in ((2, 100), (4, 250)):
-        plain = np.asarray(mandelbrot_field_pallas(
-            dom, 512, 256, max_iter=mi, kind="dwell", tile=(8, 128)))
-        ms, stats = dwell_field_ms(dom, 512, 256, max_iter=mi, stride=stride,
-                                   tile=(8, 128))
-        np.testing.assert_array_equal(plain, np.asarray(ms))
-        assert 0 < stats["filled"] < stats["tiles"]
-    with pytest.raises(ValueError, match="multiple"):
-        dwell_field_ms(dom, 500, 256, stride=2, tile=(8, 128))
-    with pytest.raises(ValueError, match="divide"):
-        dwell_field_ms(dom, 512, 256, stride=3, tile=(8, 128))
-    with pytest.raises(ValueError, match="SMEM"):
-        dwell_field_ms(dom, 131072, 131072, stride=8)  # 2^17/32 * 2^17/256 tiles

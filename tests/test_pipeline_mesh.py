@@ -192,12 +192,15 @@ def test_cli_devices_rejections(tmp_path):
               "--devices", "99", "--out", f"{tmp_path}/m2"])
 
 
-def test_platform_cpu_opts_out_of_accel_defaults(monkeypatch):
+def test_platform_cpu_opts_out_of_accel_defaults():
     import argparse
+
+    import jax
 
     import cmtci.cli as cli
 
-    monkeypatch.setattr(cli, "_session_tpu", lambda: True)
+    cli._apply_platform("cpu")
+    assert jax.config.jax_platforms == "cpu"
     ns = argparse.Namespace(cmd="tracker", field_dtype=None, de_impl=None,
                             parity=False, platform="cpu")
     cli._resolve_platform_defaults(ns)

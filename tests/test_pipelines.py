@@ -323,7 +323,7 @@ def test_cli_green_map_dtype_flag(tmp_path):
 
 
 def test_variograms_f32_field_path(tmp_path):
-    """field_dtype='float32' (TPU DE proxy + potentials) tracks the f64
+    """field_dtype='float32' (device DE proxy + potentials) tracks the f64
     gammas within the f32 grid-field noise."""
     cfg64 = VariogramConfig(n_list=(30, 60), boundary_grid=120,
                             boundary_max_iter=150, grid_nx=64, grid_ny=64,

@@ -106,27 +106,3 @@ def test_lucas_boundary_cached_path_writes_meta(tmp_path):
     out = str(tmp_path / "lp.npy")
     export_lucas_boundary(cfg, out, cache_dir=str(tmp_path / "cache"))
     assert os.path.exists(f"{out}_meta.txt")
-
-
-def test_bench_salvage_result_truncated_line():
-    """bench.py's parent must survive a child killed mid-print: the final
-    stdout line can be a truncated JSON prefix, and the salvage walks back
-    to the last COMPLETE cumulative line (review r4)."""
-    import importlib.util
-    import os
-
-    spec = importlib.util.spec_from_file_location(
-        "bench", os.path.join(os.path.dirname(__file__), "..", "bench.py"))
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
-
-    good = '{"metric": "m", "value": 1.0, "eigensweep_s": 0.2}'
-    out = "noise\n" + good + "\n" + '{"metric": "m", "value": 1.0, "tracker_w'
-    obj = bench.salvage_result(out)
-    assert obj["eigensweep_s"] == 0.2
-    assert obj["timed_out"] is True  # the completion marker never printed
-    # a final line carrying the explicit completion marker is NOT timed out
-    full = good[:-1] + ', "tci_4x_s": 0.4, "complete": true}'
-    assert "timed_out" not in bench.salvage_result("x\n" + full)
-    # nothing parseable -> None (parent falls back to the CPU path)
-    assert bench.salvage_result('{"tru\n{"ncated') is None

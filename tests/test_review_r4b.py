@@ -232,29 +232,6 @@ def test_construct_boundary_short_warns():
 # --- kernels/parallel review batch -------------------------------------------
 
 
-def test_guard_accel_f64_rejects_fake_accelerator_mesh():
-    import types
-
-    import jax.numpy as jnp
-    import pytest
-
-    from cmtci.parallel.sharded import _guard_accel_f64
-
-    class _Dev:
-        platform = "tpu"
-
-    fake = types.SimpleNamespace(devices=np.array([_Dev()], dtype=object))
-    with pytest.raises(ValueError, match="accelerator mesh"):
-        _guard_accel_f64(fake, jnp.float64, "x")
-    _guard_accel_f64(fake, jnp.float32, "x")  # f32 passes
-
-    class _Cpu:
-        platform = "cpu"
-
-    cpu = types.SimpleNamespace(devices=np.array([_Cpu()], dtype=object))
-    _guard_accel_f64(cpu, jnp.float64, "x")  # f64 on CPU mesh passes
-
-
 def test_analysis_step_mesh_independent_nonmultiple_lanes():
     """90 flat root lanes on an 8-device mesh: the old flat[:88] truncation
     dropped 2 valid n=30 roots, making kl mesh-size dependent."""
@@ -328,26 +305,6 @@ def test_sharded_de_tci_field_grid_passthrough():
                                             grid=(cr, ci))
     np.testing.assert_array_equal(esc0, esc1)
     np.testing.assert_array_equal(d0, d1)
-
-
-def test_bench_salvage_completion_marker():
-    import importlib.util
-    import json as _json
-
-    spec = importlib.util.spec_from_file_location(
-        "bench", os.path.join(os.path.dirname(__file__), "..", "bench.py"))
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
-
-    full = _json.dumps({"metric": "m", "tci_4x_s": 1.0, "complete": True})
-    partial = _json.dumps({"metric": "m", "eigensweep_s": 1.0})
-    # complete run: marker popped, no timed_out
-    out = bench.salvage_result("junk\n" + partial + "\n" + full + "\n")
-    assert "timed_out" not in out and "complete" not in out
-    # killed mid-run: last parseable line lacks the marker -> timed_out
-    out = bench.salvage_result(partial + "\n{trunc")
-    assert out["timed_out"] is True
-    assert bench.salvage_result("no json here") is None
 
 
 def test_dryrun_xla_flags_count_upgrade(monkeypatch):
@@ -461,31 +418,6 @@ def test_suite_accel_guard_falls_back_to_host(tmp_path, capsys, monkeypatch):
     assert "hausdorff" in line  # the stage completed on the host path
     assert "rerunning this stage on the host path" in cap.err
     assert os.path.exists(f"{out}/suite/spatial-stats_spatial_stats.csv")
-
-
-def test_analysis_dtype_ctx_none_is_host_pinned_under_x64_off(monkeypatch):
-    """dtype=None is the HOST path regardless of the ambient x64 flag: an
-    enable_x64(False) caller on a TPU-default session must not silently
-    promote the O(n²) scatter-add heads onto the accelerator (where they
-    serialize and saturate f32 accumulators past the int32 guards)."""
-    import contextlib
-
-    import jax
-    import jax.numpy as jnp
-
-    from cmtci.utils import device
-
-    monkeypatch.setattr(device, "on_tpu", lambda: True)
-    with jax.enable_x64(False):
-        dt, dev, _ = device.analysis_dtype_ctx(None)
-    assert dt == jnp.float32  # ambient precision is respected...
-    assert not isinstance(dev, contextlib.nullcontext)  # ...but host-pinned
-    # explicit f32 stays a device path; explicit/ambient f64 stays host
-    _, dev32, _ = device.analysis_dtype_ctx(jnp.float32)
-    assert isinstance(dev32, contextlib.nullcontext)
-    dt64, dev64, _ = device.analysis_dtype_ctx(None)
-    assert dt64 == jnp.float64
-    assert not isinstance(dev64, contextlib.nullcontext)
 
 
 def test_coupling_fused_dispatch_grouping():

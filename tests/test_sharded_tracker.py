@@ -242,30 +242,6 @@ def test_tracker_train_step_cloud_matches_insweep():
                                    rtol=1e-6, err_msg=k)
 
 
-def test_guard_accel_step_rejections():
-    """Accelerator meshes must reject f64 dtypes and in-step eigensweeps."""
-    import pytest
-
-    sharded._guard_accel_step("cpu", jnp.float64, None)  # CPU: anything goes
-    with pytest.raises(ValueError, match="float32"):
-        sharded._guard_accel_step("tpu", jnp.float64, None)
-    with pytest.raises(ValueError, match="cloud"):
-        sharded._guard_accel_step("tpu", jnp.float32, None)
-    sharded._guard_accel_step("tpu", jnp.float32, (1, 2, 3))  # ok
-
-
-def test_green_stage_executor_rejects_f64_on_accel():
-    """ADVICE r2 medium: no f64 Green escape loop onto an accelerator mesh."""
-    import pytest
-
-    sharded._guard_green_accel("cpu", jnp.float64)   # CPU mesh: fine
-    sharded._guard_green_accel("tpu", jnp.float32)   # f32 on accel: fine
-    with pytest.raises(ValueError, match="f64 Green escape"):
-        sharded._guard_green_accel("tpu", jnp.float64)
-    # (the f64 CPU-mesh end-to-end path is covered by
-    # test_sharded_green_cloud_bitwise)
-
-
 def test_masked_quantile_empty_mask_is_inf_sentinel():
     """ADVICE r2 low: all-false mask yields the +inf sentinel, not NaN."""
     vals = jnp.asarray([3.0, 1.0, 2.0], dtype=jnp.float32)

@@ -2,7 +2,7 @@
 
 tests/data/v3_*.csv are the reference repo's frozen gi_assumption_tracker_v3
 outputs (seed 7). In parity mode the rebuilt pipeline reproduces them to
-~1e-9 relative; the TPU-first path (Aberth eigensolver + blocked matcher)
+~1e-9 relative; the fast path (Aberth eigensolver + blocked matcher)
 must agree statistically.
 """
 
@@ -28,7 +28,7 @@ def _ref_rows(name):
         return list(csv.DictReader(f))
 
 
-@pytest.mark.parametrize("mode", ["parity", "tpu"])
+@pytest.mark.parametrize("mode", ["parity", "fast"])
 def test_fixed_t_stage1_vs_oracle(mode):
     ref = _ref_rows("v3_T25_sigma3_dense.csv")[0]
     cfg = TrackerConfig(sigma_bins=3.0, t_fixed=25, bins_start=64, bins_max=512,
@@ -46,10 +46,10 @@ def test_fixed_t_stage1_vs_oracle(mode):
     assert r.mass_outside_domain_M == 0.0
 
 
-def test_tpu_path_stage2_statistical():
+def test_fast_path_stage2_statistical():
     """Aberth cloud + blocked matcher at stage-2 scale (n<=480, 690² grid).
 
-    The TPU-first path diverges from the oracle's RNG stream only through
+    The fast (non-parity) path diverges from the oracle's RNG stream only through
     f64 rounding; metrics must stay within the tracker's seed-to-seed
     spread (~±35%, see VALIDATION.md) — use 5% here.
     """
